@@ -5,7 +5,7 @@ transliteration of KmerNormalize.java's retention decision.
 This oracle is deliberately written as a direct line-by-line port of
 the Java (variable names and control flow follow
 bbmap/current/jgi/KmerNormalize.java; citations inline), separate from
-the vectorized implementation in megapath_tpu/filters/bbnorm.py — the
+the vectorized implementation in megapath/filters/bbnorm.py — the
 golden test pins the two against each other.
 
 Coin convention shared with the implementation (documented divergence

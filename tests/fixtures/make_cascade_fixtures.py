@@ -12,7 +12,7 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 import jax
 jax.config.update("jax_platforms", "cpu")
 
-from megapath_tpu.index.pack import COMPLEMENT, decode_seq
+from megapath.index.pack import COMPLEMENT, decode_seq
 FIX = "/root/repo/tests/fixtures"
 WD = "/tmp/shardpar"
 os.makedirs(WD, exist_ok=True)
@@ -81,11 +81,11 @@ run(f"{B}/cc/taxLookupAcc {FIX}/acc2tid.map {FIX}/nodes.dmp {FIX}/names.dmp ref.
 run(f"{B}/cc/genKrakenReport {FIX}/nodes.dmp {FIX}/names.dmp ref.lsam.id 40 > ref.report")
 
 # ---- our pipeline ----
-from megapath_tpu.index.fm import build_fm_index
-from megapath_tpu.index.pack import pack_fasta
-from megapath_tpu.io.fastq import FastqRecord, read_fastx, trim_readno
-from megapath_tpu.pipeline import MegaPathPipeline, PipelineConfig
-from megapath_tpu.taxonomy import TaxDB
+from megapath.index.fm import build_fm_index
+from megapath.index.pack import pack_fasta
+from megapath.io.fastq import FastqRecord, read_fastx, trim_readno
+from megapath.pipeline import MegaPathPipeline, PipelineConfig
+from megapath.taxonomy import TaxDB
 
 db = TaxDB()
 db.read_nodes(f"{FIX}/nodes.dmp"); db.read_names(f"{FIX}/names.dmp"); db.read_acc2tid(f"{FIX}/acc2tid.map")

@@ -30,7 +30,7 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "..", ".."))
 
-from megapath_tpu.index.pack import COMPLEMENT, decode_seq  # noqa: E402
+from megapath.index.pack import COMPLEMENT, decode_seq  # noqa: E402
 
 
 def main() -> None:

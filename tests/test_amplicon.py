@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from megapath_tpu.amplicon import candidate_haplotypes, realign_window
-from megapath_tpu.amplicon.debruijn import DeBruijnGraph
+from megapath.amplicon import candidate_haplotypes, realign_window
+from megapath.amplicon.debruijn import DeBruijnGraph
 
 
 def _rand_seq(n, seed):
@@ -70,7 +70,7 @@ def test_realign_reads_matching_ref():
 def test_update_vcf_af():
     """extract_vcf_position.py semantics: AF/DP rewrite from the
     realignment pileup (SNP / insertion / deletion alt keys)."""
-    from megapath_tpu.io.vcf import find_af, update_vcf_af
+    from megapath.io.vcf import find_af, update_vcf_af
 
     assert find_af(100, {"T": 30}, "A", "T") == 0.3
     assert find_af(100, {"IAC": 10}, "A", "AAC") == 0.1

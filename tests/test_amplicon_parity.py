@@ -9,8 +9,8 @@ the reference ``realign_reads`` and our ``realign_reads_window``
 identical windows with planted SNP / deletion / insertion haplotypes,
 asserting the realigned positions and cigars agree read for read.
 
-This is VERDICT item 8's "at least the realignment stage" parity
-evidence; the GATK-replacement pileup caller is tested separately on
+This is the parity evidence for the realignment stage; the
+GATK-replacement pileup caller is tested separately on
 planted truth (test_amplicon_pipeline.py).
 """
 
@@ -104,7 +104,7 @@ def _mkseq(rng, n):
 
 def _compare(lib, reads, positions, cigars, reference, haplotypes,
              ref_start, ref_prefix, ref_suffix):
-    from megapath_tpu.amplicon.realign import realign_reads_window
+    from megapath.amplicon.realign import realign_reads_window
 
     rp, rc = run_reference(lib, reads, positions, cigars, reference,
                            haplotypes, ref_start, ref_prefix, ref_suffix)

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from megapath_tpu.index.fm import build_fm_index
-from megapath_tpu.index.pack import COMPLEMENT, decode_seq, pack_fasta
-from megapath_tpu.io.fastq import FastqRecord
-from megapath_tpu.pipeline.amplicon import AmpliconConfig, AmpliconPipeline
+from megapath.index.fm import build_fm_index
+from megapath.index.pack import COMPLEMENT, decode_seq, pack_fasta
+from megapath.io.fastq import FastqRecord
+from megapath.pipeline.amplicon import AmpliconConfig, AmpliconPipeline
 
 
 @pytest.fixture(scope="module")
@@ -107,7 +107,7 @@ def test_amplicon_run_files(amp_world, tmp_path):
 
 
 def test_assembly_filter_retains_region_reads(amp_world):
-    from megapath_tpu.index.pack import pack_reads
+    from megapath.index.pack import pack_reads
 
     tb_pack = amp_world[0]
     tb = amp_world[2]
@@ -205,7 +205,7 @@ def test_variant_caller_planted_truth_recall_precision(amp_world, tmp_path):
     import io as _io
     import pathlib
 
-    from megapath_tpu.io.vcf import write_vcf
+    from megapath.io.vcf import write_vcf
 
     buf = _io.StringIO()
     write_vcf(res.variants, buf, contigs=[("TB", 6000)])
@@ -217,7 +217,7 @@ def test_variant_caller_planted_truth_recall_precision(amp_world, tmp_path):
 
 def test_variant_caller_multiallelic_and_low_af_near_indel(amp_world):
     """Extended planted fixture (GATK comparison is unobtainable in
-    this environment — no java/gatk; see ROUND4_NOTES.md): a
+    this environment — no java/gatk): a
     multi-allelic SNP site (two alts at ~0.3 AF each) and a low-AF
     (0.25) haplotype carrying a 3 bp deletion with a het SNP 10 bp
     downstream. All four alleles must be called with sane AFs."""
@@ -326,7 +326,7 @@ def test_variant_caller_homopolymer_indel(amp_world):
 
 
 def test_variant_caller_realistic_error_truth_set(amp_world):
-    """VERDICT r4 item 9: precision/recall vs a planted truth VCF at
+    """Precision/recall vs a planted truth VCF at
     amplicon depth with a realistic error profile (0.5%/base), SNPs
     and indels up to 10 bp, hom and het. Indel calls may surface in a
     shifted-but-equivalent normalization, so matching applies each

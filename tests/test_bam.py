@@ -3,13 +3,13 @@
 import gzip
 import io
 
-from megapath_tpu.io.bam import BgzfWriter, bgzf_decompress, read_bam, write_bam
+from megapath.io.bam import BgzfWriter, bgzf_decompress, read_bam, write_bam
 
 HEADER = (
     "@HD\tVN:1.6\tSO:unsorted\n"
     "@SQ\tSN:chr1\tLN:10000\n"
     "@SQ\tSN:chr2\tLN:5000\n"
-    "@PG\tID:megapath-tpu\tPN:megapath-tpu\n"
+    "@PG\tID:megapath\tPN:megapath\n"
 )
 LINES = [
     "r1\t99\tchr1\t100\t60\t50M\t=\t300\t250\t" + "A" * 50 + "\t" + "I" * 50 + "\tAS:i:48",
@@ -102,11 +102,11 @@ def test_bam_from_sam_writer(tmp_path):
     """BAM of the engine's own SAM output round-trips."""
     import numpy as np
 
-    from megapath_tpu.index.fm import build_fm_index
-    from megapath_tpu.index.pack import COMPLEMENT, decode_seq, pack_fasta
-    from megapath_tpu.io.fastq import FastqRecord
-    from megapath_tpu.io.sam import hits_to_sam, sam_header
-    from megapath_tpu.align import AlignEngine, AlignParams
+    from megapath.index.fm import build_fm_index
+    from megapath.index.pack import COMPLEMENT, decode_seq, pack_fasta
+    from megapath.io.fastq import FastqRecord
+    from megapath.io.sam import hits_to_sam, sam_header
+    from megapath.align import AlignEngine, AlignParams
 
     rng = np.random.default_rng(8)
     genome = rng.integers(0, 4, 5000).astype(np.uint8)
@@ -138,7 +138,7 @@ def test_sort_and_merge_bams(tmp_path):
     """samtools sort/merge equivalent over per-shard BAMs."""
     import io as _io
 
-    from megapath_tpu.io.bam import merge_bams, read_bam, sort_sam_lines, write_bam
+    from megapath.io.bam import merge_bams, read_bam, sort_sam_lines, write_bam
 
     header = "@HD\tVN:1.6\n@SQ\tSN:chr1\tLN:1000\n@SQ\tSN:chr2\tLN:500\n"
 
@@ -169,7 +169,7 @@ def test_merge_bams_header_mismatch(tmp_path):
 
     import pytest as _pytest
 
-    from megapath_tpu.io.bam import merge_bams, write_bam
+    from megapath.io.bam import merge_bams, write_bam
 
     h1 = "@SQ\tSN:chr1\tLN:1000\n"
     h2 = "@SQ\tSN:chrX\tLN:99\n"

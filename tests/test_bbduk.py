@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from megapath_tpu.filters.bbduk import (
+from megapath.filters.bbduk import (
     KmerRef,
     average_entropy,
     bbduk_pair,
@@ -11,8 +11,8 @@ from megapath_tpu.filters.bbduk import (
     quality_trim,
     phred_error,
 )
-from megapath_tpu.index.pack import encode_seq
-from megapath_tpu.io.fastq import FastqRecord
+from megapath.index.pack import encode_seq
+from megapath.io.fastq import FastqRecord
 
 
 def _pack(seqs, L=128):
@@ -138,8 +138,8 @@ def test_bbduk_pair_arrays_matches_record_path():
     """bbduk_pair_arrays code matrices == pack_reads over bbduk_pair's
     record output, and the lazy record views are identical — across
     adapters/kmask, quality trims, Ns, and low-complexity splits."""
-    from megapath_tpu.filters.bbduk import bbduk_pair_arrays
-    from megapath_tpu.index.pack import pack_reads
+    from megapath.filters.bbduk import bbduk_pair_arrays
+    from megapath.index.pack import pack_reads
 
     rng = np.random.default_rng(11)
     adapter = "".join(rng.choice(list("ACGT")) for _ in range(31))

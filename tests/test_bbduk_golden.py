@@ -13,7 +13,7 @@ for the three stage-0 primitives under the MegaPath driver flags
 
 The oracle functions below are written against the Java line by line
 (scalar loops, float32 where Java uses float) and are deliberately
-structured differently from megapath_tpu.filters.bbduk's vectorized
+structured differently from megapath.filters.bbduk's vectorized
 implementations. A pinned byte golden (this file's GOLDEN constant)
 locks the oracle's own output so regressions in either side surface.
 """
@@ -21,7 +21,7 @@ locks the oracle's own output so regressions in either side surface.
 import numpy as np
 import pytest
 
-from megapath_tpu.filters.bbduk import (
+from megapath.filters.bbduk import (
     KmerRef,
     average_entropy,
     build_kmer_ref,

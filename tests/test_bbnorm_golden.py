@@ -8,7 +8,7 @@ import pathlib
 
 import numpy as np
 
-from megapath_tpu.filters.bbnorm import (
+from megapath.filters.bbnorm import (
     canonical_kmers,
     end_stats,
     normalize_pairs,

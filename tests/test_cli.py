@@ -10,7 +10,7 @@ import sys
 
 import pytest
 
-from megapath_tpu.cli import main
+from megapath.cli import main
 
 
 def run_cli(argv, stdin_text=None, capsys=None, monkeypatch=None):
@@ -187,8 +187,8 @@ def test_count_table(tmp_path, capsys, monkeypatch, fixtures_dir=None):
 def test_vcf_writer(tmp_path):
     import io as _io
 
-    from megapath_tpu.io.vcf import write_vcf
-    from megapath_tpu.pipeline.amplicon import Variant
+    from megapath.io.vcf import write_vcf
+    from megapath.pipeline.amplicon import Variant
 
     buf = _io.StringIO()
     vs = [Variant(seq="chr1 desc", pos=9, ref="A", alt="T", depth=20, alt_count=19)]
@@ -199,8 +199,8 @@ def test_vcf_writer(tmp_path):
 
 
 def test_build_db_end_to_end(tmp_path, capsys, monkeypatch):
-    """One-command raw-NT -> curated sharded indexes (VERDICT r4 item
-    8): createDB curation drops artificial/unmapped sequences, filterDB
+    """One-command raw-NT -> curated sharded indexes: createDB
+    curation drops artificial/unmapped sequences, filterDB
     drops the named taxon, shards get real loadable indexes."""
     import numpy as np
 
@@ -265,8 +265,8 @@ def test_build_db_end_to_end(tmp_path, capsys, monkeypatch):
     assert "UV001" in curated  # UniVec appended
     pairs = [l.split("\t") for l in out.strip().splitlines() if "\t" in l]
     assert len(pairs) >= 2  # 5.5 kbp curated at 5 kbp/shard -> 2 shards
-    from megapath_tpu.index.fm import FMIndex
-    from megapath_tpu.index.pack import PackedReference
+    from megapath.index.fm import FMIndex
+    from megapath.index.pack import PackedReference
 
     for rp, fp in pairs:
         ref = PackedReference.load(rp)

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from megapath_tpu.index.pack import encode_seq
-from megapath_tpu.ops.dp import (
+from megapath.index.pack import encode_seq
+from megapath.ops.dp import (
     DPParams,
     sw_align,
     sw_align_oracle,
@@ -144,7 +144,7 @@ def test_traceback_insertion():
 
 def test_threshold_semantics():
     # both-ends keep rule: score >= max(0.2*len, 30)
-    from megapath_tpu.ops.dp import DPParams
+    from megapath.ops.dp import DPParams
 
     assert max(0.2 * 100, 30) == 30
     assert max(0.2 * 200, 30) == 40
@@ -153,7 +153,7 @@ def test_threshold_semantics():
 def test_traceback_batch_matches_scalar():
     """sw_traceback_batch reproduces sw_traceback per hit exactly —
     mixed clean/mutated/indel/junk reads over random windows."""
-    from megapath_tpu.ops.dp import sw_traceback, sw_traceback_batch
+    from megapath.ops.dp import sw_traceback, sw_traceback_batch
 
     rng = np.random.default_rng(99)
     B, R, W = 64, 60, 96
@@ -177,7 +177,7 @@ def test_traceback_batch_matches_scalar():
             read = _rand(R, rng)
         reads[b] = read[:R]
         wins[b] = win
-        from megapath_tpu.ops.dp import sw_align_oracle
+        from megapath.ops.dp import sw_align_oracle
 
         _, ei_, ej_ = sw_align_oracle(reads[b], win)
         # traceback both from the optimum and from the corner (the SAM

@@ -3,16 +3,16 @@
 import numpy as np
 import pytest
 
-from megapath_tpu.align import (
+from megapath.align import (
     AlignEngine,
     AlignParams,
     MmpParams,
     best_per_seq,
     format_comment,
 )
-from megapath_tpu.index.fm import build_fm_index
-from megapath_tpu.index.pack import COMPLEMENT, PackedReference, pack_fasta
-from megapath_tpu.io.fastq import FastqRecord
+from megapath.index.fm import build_fm_index
+from megapath.index.pack import COMPLEMENT, PackedReference, pack_fasta
+from megapath.io.fastq import FastqRecord
 
 
 def _rand(n, rng):
@@ -176,7 +176,7 @@ def test_format_comment_prev_merge(world):
 
 
 def test_format_comment_ignore():
-    from megapath_tpu.align.params import AlignParams
+    from megapath.align.params import AlignParams
 
     ref = PackedReference(
         codes=np.zeros(0, np.uint8),
@@ -261,7 +261,7 @@ def test_single_end_candidate_cap(world):
         codes=codes, names=ref.names, annotations=ref.annotations,
         offsets=ref.offsets, ambiguous=ref.ambiguous,
     )
-    from megapath_tpu.index.fm import build_fm_index
+    from megapath.index.fm import build_fm_index
 
     fm2 = build_fm_index(codes, sa_interval=4, lut_k=6)
     reads1 = motif[None, :].copy()
@@ -284,7 +284,7 @@ def test_pipelined_batch_path_matches_plain(world):
     produce exactly the plain path's hits."""
     import numpy as np
 
-    from megapath_tpu.align.engine import BatchHits
+    from megapath.align.engine import BatchHits
 
     ref, fm, params, seqs = world
     engine = AlignEngine(ref, fm, params, device_seeding=True)
@@ -328,7 +328,7 @@ def test_staged_seed_compact_matches_plain(world):
     produce exactly the plain walk's hits through the engine."""
     import numpy as np
 
-    from megapath_tpu.align.engine import BatchHits
+    from megapath.align.engine import BatchHits
 
     ref, fm, params, seqs = world
     engine = AlignEngine(ref, fm, params, device_seeding=True)
@@ -373,10 +373,10 @@ def test_exact_rescue_modes_agree_when_dial_is_lossless():
     hit sets — the rescue is a no-op, not a perturbation."""
     import numpy as np
 
-    from megapath_tpu.align import AlignEngine, AlignParams
-    from megapath_tpu.index.fm import build_fm_index
-    from megapath_tpu.index.pack import pack_fasta
-    from megapath_tpu.io.fastq import FastqRecord
+    from megapath.align import AlignEngine, AlignParams
+    from megapath.index.fm import build_fm_index
+    from megapath.index.pack import pack_fasta
+    from megapath.io.fastq import FastqRecord
 
     rng = np.random.default_rng(8)
     decode = np.frombuffer(b"ACGT", dtype=np.uint8)

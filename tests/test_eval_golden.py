@@ -11,14 +11,14 @@ FIX = pathlib.Path(__file__).parent / "fixtures"
 
 
 def test_m8_coverage_byte_parity():
-    from megapath_tpu.utils.accuracy import m8_coverage
+    from megapath.utils.accuracy import m8_coverage
 
     got = m8_coverage(open(FIX / "eval_in.m8"))
     assert got == (FIX / "eval_cov.golden").read_text()
 
 
 def test_maplen_hist_byte_parity():
-    from megapath_tpu.utils.accuracy import maplen_stats
+    from megapath.utils.accuracy import maplen_stats
 
     got = maplen_stats(
         open(FIX / "eval_in.m8"),
@@ -29,16 +29,16 @@ def test_maplen_hist_byte_parity():
 
 
 def test_maplen_hist_no_fasta_byte_parity():
-    from megapath_tpu.utils.accuracy import maplen_stats
+    from megapath.utils.accuracy import maplen_stats
 
     got = maplen_stats(open(FIX / "eval_in.m8"))
     assert got == (FIX / "eval_hist_nofa.golden").read_text()
 
 
 def test_count_table_byte_parity():
-    from megapath_tpu.io.lsam import read_lsam
-    from megapath_tpu.taxonomy.taxdb import TaxDB
-    from megapath_tpu.utils.accuracy import count_table
+    from megapath.io.lsam import read_lsam
+    from megapath.taxonomy.taxdb import TaxDB
+    from megapath.utils.accuracy import count_table
 
     db = TaxDB(size=3_000_000)
     db.read_nodes(FIX / "nodes.dmp")

@@ -2,11 +2,11 @@
 
 import numpy as np
 
-from megapath_tpu.classify.extras import cleanup_contaminants, m8_to_lsam, r2c_to_r2g
-from megapath_tpu.filters.bbnorm import normalize_pairs
-from megapath_tpu.io.lsam import LsamRecord
-from megapath_tpu.io.stream import stream_read_pairs
-from megapath_tpu.utils.accuracy import evaluate
+from megapath.classify.extras import cleanup_contaminants, m8_to_lsam, r2c_to_r2g
+from megapath.filters.bbnorm import normalize_pairs
+from megapath.io.lsam import LsamRecord
+from megapath.io.stream import stream_read_pairs
+from megapath.utils.accuracy import evaluate
 
 
 def test_stream_read_pairs(tmp_path):
@@ -102,7 +102,7 @@ def test_accuracy_eval(mini_taxdb):
 
 
 def test_cli_report(tmp_path, fixtures_dir, capsys):
-    from megapath_tpu.cli import main
+    from megapath.cli import main
 
     rc = main([
         "report",
@@ -117,7 +117,7 @@ def test_cli_report(tmp_path, fixtures_dir, capsys):
 
 
 def test_sam2cfq_scores_and_hits():
-    from megapath_tpu.io.sam2cfq import sam_to_cfq, score_from_cigar_nm
+    from megapath.io.sam2cfq import sam_to_cfq, score_from_cigar_nm
 
     # 100M with NM=2 -> 98 matches*1 + 2 mism*-2 = 94
     assert score_from_cigar_nm("100M", 2) == 94
@@ -139,7 +139,7 @@ def test_sam2cfq_scores_and_hits():
 def test_stage_timer():
     import io as _io
 
-    from megapath_tpu.utils.timing import StageTimer
+    from megapath.utils.timing import StageTimer
 
     buf = _io.StringIO()
     t = StageTimer(out=buf)
@@ -150,8 +150,8 @@ def test_stage_timer():
 
 
 def test_japsa_to_kraken_report(tmp_path):
-    from megapath_tpu.classify.extras import japsa_to_kraken_report
-    from megapath_tpu.taxonomy.taxdb import TaxDB
+    from megapath.classify.extras import japsa_to_kraken_report
+    from megapath.taxonomy.taxdb import TaxDB
     import pathlib
 
     fx = pathlib.Path(__file__).parent / "fixtures"
@@ -179,8 +179,8 @@ def test_japsa_to_kraken_report(tmp_path):
 def test_filter_cross_family_reads():
     import pathlib
 
-    from megapath_tpu.classify.extras import filter_cross_family_reads
-    from megapath_tpu.taxonomy.taxdb import TaxDB
+    from megapath.classify.extras import filter_cross_family_reads
+    from megapath.taxonomy.taxdb import TaxDB
 
     fx = pathlib.Path(__file__).parent / "fixtures"
     db = TaxDB(size=3_000_000)

@@ -7,11 +7,11 @@ match them byte for byte.
 
 import io
 
-from megapath_tpu.io import fastq as fq
-from megapath_tpu.io import lsam as lsam_mod
-from megapath_tpu.classify.taxlookup import tax_lookup_acc
-from megapath_tpu.classify.reassign import reassign_lines
-from megapath_tpu.taxonomy.report import gen_kraken_report
+from megapath.io import fastq as fq
+from megapath.io import lsam as lsam_mod
+from megapath.classify.taxlookup import tax_lookup_acc
+from megapath.classify.reassign import reassign_lines
+from megapath.taxonomy.report import gen_kraken_report
 
 
 def test_fastq_roundtrip(tmp_path):

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from megapath_tpu.index import (
+from megapath.index import (
     FMIndex,
     build_fm_index,
     decode_seq,
@@ -12,8 +12,8 @@ from megapath_tpu.index import (
     revcomp,
     suffix_array,
 )
-from megapath_tpu.index.suffix import validate_sa
-from megapath_tpu.io.fastq import FastqRecord
+from megapath.index.suffix import validate_sa
+from megapath.io.fastq import FastqRecord
 
 
 def _rand_codes(n, seed=0):
@@ -149,8 +149,8 @@ def test_save_load_roundtrip(tmp_path):
 
 
 def test_split_ref_to_reads():
-    from megapath_tpu.index.dbtools import split_ref_to_reads
-    from megapath_tpu.io.fastq import FastqRecord
+    from megapath.index.dbtools import split_ref_to_reads
+    from megapath.io.fastq import FastqRecord
 
     recs = [FastqRecord("ctg", "ACGTACGTAC", "", "")]
     out = list(split_ref_to_reads(recs, read_len=4, overlap=3))
@@ -162,8 +162,8 @@ def test_split_ref_to_reads():
 
 
 def test_revcomp_fastx():
-    from megapath_tpu.index.dbtools import revcomp_fastx
-    from megapath_tpu.io.fastq import FastqRecord
+    from megapath.index.dbtools import revcomp_fastx
+    from megapath.io.fastq import FastqRecord
 
     out = list(revcomp_fastx([FastqRecord("r", "ACGTN", "IJKLM", "")]))
     assert out[0].seq == "NACGT"
@@ -171,8 +171,8 @@ def test_revcomp_fastx():
 
 
 def test_smart_pairing():
-    from megapath_tpu.index.dbtools import smart_pairing
-    from megapath_tpu.io.fastq import FastqRecord
+    from megapath.index.dbtools import smart_pairing
+    from megapath.io.fastq import FastqRecord
 
     recs = [
         FastqRecord("a/1", "AC", "II", ""),
@@ -189,9 +189,9 @@ def test_smart_pairing():
 def test_split_fasta_shard_cap(tmp_path):
     """Splitter packs sequences up to max_bp per shard; an oversized
     sequence gets its own shard (splitFasta.pl semantics, with the
-    TPU 2 Gbp default pinned in index/shard.py)."""
-    from megapath_tpu.index.shard import DEFAULT_SHARD_BP, split_fasta
-    from megapath_tpu.io.fastq import read_fastx
+    int32-safe 2 Gbp default pinned in index/shard.py)."""
+    from megapath.index.shard import DEFAULT_SHARD_BP, split_fasta
+    from megapath.io.fastq import read_fastx
 
     assert DEFAULT_SHARD_BP == int(2.0e9)  # pinned design decision
     p = tmp_path / "ref.fa"
@@ -217,7 +217,7 @@ def test_device_fm_rejects_oversized_shard():
 
     import pytest as _pytest
 
-    from megapath_tpu.align.seeding_jax import DeviceFM
+    from megapath.align.seeding_jax import DeviceFM
 
     with _pytest.raises(AssertionError, match="2\\^31|2\\*\\*31|shard"):
         DeviceFM.from_host(SimpleNamespace(n=2**31))
@@ -227,14 +227,14 @@ def test_db_construction_tools(mini_taxdb):
     """createDB / filterDB / selectSameSpecieGenome / surpiAnn2id
     (cc/createDB.cpp, filterDB.cpp, selectSameSpecieGenome.cc,
     surpiAnn2id.cpp)."""
-    from megapath_tpu.index.dbtools import (
+    from megapath.index.dbtools import (
         create_db,
         filter_db,
         header2acc,
         select_same_species_genome,
         surpi_ann2id,
     )
-    from megapath_tpu.io.fastq import FastqRecord
+    from megapath.io.fastq import FastqRecord
 
     # header parsing: old gi|, new multi-acc with \x01, UniVec
     assert header2acc("gi|123|ref|NC_000913.3| E coli") == ["NC_000913"]
@@ -286,9 +286,9 @@ def test_db_construction_tools(mini_taxdb):
 
 
 def test_kraken_censtruct_and_extract_region():
-    from megapath_tpu.index.dbtools import extract_region, kraken_censtruct
-    from megapath_tpu.index.pack import pack_fasta
-    from megapath_tpu.io.fastq import FastqRecord
+    from megapath.index.dbtools import extract_region, kraken_censtruct
+    from megapath.index.pack import pack_fasta
+    from megapath.io.fastq import FastqRecord
 
     recs = [FastqRecord("seqA", "ACGTACGTAC", "", ""),
             FastqRecord("seqB", "GGGGCCCC", "", "")]

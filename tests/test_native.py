@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from megapath_tpu.native.build import load_saais, suffix_array_native
-from megapath_tpu.index.suffix import _suffix_array_doubling, suffix_array
+from megapath.native.build import load_saais, suffix_array_native
+from megapath.index.suffix import _suffix_array_doubling, suffix_array
 
 
 @pytest.mark.skipif(load_saais() is None, reason="native build unavailable")
@@ -36,7 +36,7 @@ def test_native_fastq_reader(tmp_path):
     import numpy as np
     import pytest
 
-    from megapath_tpu.native.build import NativeFastqReader, load_fastq_lib
+    from megapath.native.build import NativeFastqReader, load_fastq_lib
 
     if load_fastq_lib() is None:
         pytest.skip("native fastq parser unavailable")
@@ -63,7 +63,7 @@ def test_native_fastq_reader(tmp_path):
 def test_native_fastq_fasta(tmp_path):
     import pytest
 
-    from megapath_tpu.native.build import NativeFastqReader, load_fastq_lib
+    from megapath.native.build import NativeFastqReader, load_fastq_lib
 
     if load_fastq_lib() is None:
         pytest.skip("native fastq parser unavailable")
@@ -79,7 +79,7 @@ def test_native_fastq_fasta(tmp_path):
 def test_native_fastq_multiline_fasta(tmp_path):
     import pytest
 
-    from megapath_tpu.native.build import NativeFastqReader, load_fastq_lib
+    from megapath.native.build import NativeFastqReader, load_fastq_lib
 
     if load_fastq_lib() is None:
         pytest.skip("native fastq parser unavailable")

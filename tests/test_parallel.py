@@ -29,7 +29,7 @@ def test_dryrun_multichip(n):
 def test_dist_merge_correctness():
     """Cross-shard all_gather merge picks the true best shard per read
     and maps the hit through the shard's sequence->species table."""
-    from megapath_tpu.parallel.dist import (
+    from megapath.parallel.dist import (
         build_dist_align_step,
         make_mesh,
         shard_arrays,

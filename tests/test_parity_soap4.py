@@ -10,11 +10,11 @@ import pathlib
 import numpy as np
 import pytest
 
-from megapath_tpu.align import AlignEngine, AlignParams, best_per_seq
-from megapath_tpu.align.output import format_comment
-from megapath_tpu.index.fm import build_fm_index
-from megapath_tpu.index.pack import pack_fasta_file, pack_reads
-from megapath_tpu.io.fastq import read_fastx, trim_readno
+from megapath.align import AlignEngine, AlignParams, best_per_seq
+from megapath.align.output import format_comment
+from megapath.index.fm import build_fm_index
+from megapath.index.pack import pack_fasta_file, pack_reads
+from megapath.io.fastq import read_fastx, trim_readno
 
 FIX = pathlib.Path(__file__).parent / "fixtures"
 

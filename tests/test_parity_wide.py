@@ -18,11 +18,11 @@ import re
 import numpy as np
 import pytest
 
-from megapath_tpu.align import AlignEngine, AlignParams, best_per_seq
-from megapath_tpu.align.output import format_comment
-from megapath_tpu.index.fm import build_fm_index
-from megapath_tpu.index.pack import pack_fasta_file, pack_reads
-from megapath_tpu.io.fastq import read_fastx, trim_readno
+from megapath.align import AlignEngine, AlignParams, best_per_seq
+from megapath.align.output import format_comment
+from megapath.index.fm import build_fm_index
+from megapath.index.pack import pack_fasta_file, pack_reads
+from megapath.io.fastq import read_fastx, trim_readno
 
 WIDE = pathlib.Path(__file__).parent / "fixtures" / "wide"
 
@@ -112,7 +112,7 @@ def test_wide_sam_invariants_and_planted_cigars(wide_world):
      hits, table, golden, truth) = wide_world
     import io
 
-    from megapath_tpu.io.sam import hits_to_sam
+    from megapath.io.sam import hits_to_sam
 
     names = [trim_readno(r.name) for r in r1]
     lines = list(hits_to_sam(

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from megapath_tpu.index.fm import build_fm_index
-from megapath_tpu.index.pack import COMPLEMENT, decode_seq, pack_fasta
-from megapath_tpu.io.fastq import FastqRecord
-from megapath_tpu.pipeline import MegaPathPipeline, PipelineConfig
+from megapath.index.fm import build_fm_index
+from megapath.index.pack import COMPLEMENT, decode_seq, pack_fasta
+from megapath.io.fastq import FastqRecord
+from megapath.pipeline import MegaPathPipeline, PipelineConfig
 
 
 @pytest.fixture(scope="module")
@@ -248,7 +248,7 @@ def test_run_files_aborts_on_empty_stage(world, tmp_path):
     report."""
     import pytest
 
-    from megapath_tpu.pipeline.megapath import PipelineAbort
+    from megapath.pipeline.megapath import PipelineAbort
 
     shard0, shard1, hg_shard, seqs, db = world
     rng = np.random.default_rng(66)
@@ -332,7 +332,7 @@ def test_run_files_bam_output(world, tmp_path):
     read; coordinate-sorted within the merged file)."""
     import re
 
-    from megapath_tpu.io.bam import read_bam
+    from megapath.io.bam import read_bam
 
     shard0, shard1, hg_shard, seqs, db = world
     rng = np.random.default_rng(17)
@@ -384,7 +384,7 @@ def test_run_files_spmd_backend_with_bam(world, tmp_path):
     one-program SPMD backend (config.spmd) AND BAM output (config.bam)
     produces the same reports as the host path plus a merged BAM whose
     records cover the aligned reads."""
-    from megapath_tpu.io.bam import read_bam
+    from megapath.io.bam import read_bam
 
     shard0, shard1, hg_shard, seqs, db = world
     rng = np.random.default_rng(23)
@@ -423,7 +423,7 @@ def test_run_files_spmd_backend_with_bam(world, tmp_path):
 
 
 def test_e2e_sensitivity_fdr_gate():
-    """Tolerance gate on the end-to-end evaluation (VERDICT r4 item 4):
+    """Tolerance gate on the end-to-end sensitivity/FDR evaluation:
     a scaled-down version of tools/e2e_eval.py's simulated community
     (uneven abundance, read errors, decoy genomes). The full-size run
     against the reference pipeline is recorded in EVAL.md (both
@@ -431,14 +431,14 @@ def test_e2e_sensitivity_fdr_gate():
     gate holds our pipeline to that measured operating point."""
     import numpy as np
 
-    from megapath_tpu.index.fm import build_fm_index
-    from megapath_tpu.index.pack import pack_fasta
-    from megapath_tpu.io.fastq import FastqRecord
-    from megapath_tpu.pipeline.megapath import (
+    from megapath.index.fm import build_fm_index
+    from megapath.index.pack import pack_fasta
+    from megapath.io.fastq import FastqRecord
+    from megapath.pipeline.megapath import (
         MegaPathPipeline,
         PipelineConfig,
     )
-    from megapath_tpu.taxonomy.taxdb import TaxDB
+    from megapath.taxonomy.taxdb import TaxDB
 
     rng = np.random.default_rng(67)
     decode = np.frombuffer(b"ACGT", dtype=np.uint8)

@@ -8,7 +8,7 @@ by '0x1', then m8_to_lsam -> taxLookup -> report.
 import numpy as np
 import pytest
 
-from megapath_tpu.classify.protein import (
+from megapath.classify.protein import (
     AA_CODE,
     BLOSUM62,
     BlastxParams,
@@ -26,7 +26,7 @@ def enc_dna(s):
 
 
 def aa_str(codes):
-    from megapath_tpu.classify.protein import AA
+    from megapath.classify.protein import AA
 
     return "".join(AA[c] for c in codes)
 
@@ -52,7 +52,7 @@ def test_translate_roundtrip_length():
 
 def _reverse_translate(aa_seq: str, rng) -> str:
     """Any codon that decodes to each aa (for planting queries)."""
-    from megapath_tpu.classify.protein import CODON_AA
+    from megapath.classify.protein import CODON_AA
 
     out = []
     for c in aa_seq:
@@ -65,7 +65,7 @@ def _reverse_translate(aa_seq: str, rng) -> str:
 @pytest.fixture(scope="module")
 def prot_db():
     rng = np.random.default_rng(5)
-    from megapath_tpu.classify.protein import AA
+    from megapath.classify.protein import AA
 
     real20 = AA[:20]
     seqs = []
@@ -113,7 +113,7 @@ def test_blastx_mutations_reported(prot_db):
     db, seqs = prot_db
     rng = np.random.default_rng(9)
     frag = list(seqs[1][1][0:60])
-    from megapath_tpu.classify.protein import AA
+    from megapath.classify.protein import AA
 
     # two aa substitutions
     frag[20] = AA[(AA_CODE[frag[20]] + 1) % 20]
@@ -134,7 +134,7 @@ def test_blastx_no_random_hits(prot_db):
 
 
 def test_m8_flows_into_lsam(prot_db):
-    from megapath_tpu.classify.extras import m8_to_lsam
+    from megapath.classify.extras import m8_to_lsam
 
     db, seqs = prot_db
     rng = np.random.default_rng(11)
@@ -149,7 +149,7 @@ def test_m8_flows_into_lsam(prot_db):
 
 def test_device_blosum_dp_matches_host_oracle():
     """sw_align_substmat vs a plain numpy SW under BLOSUM62."""
-    from megapath_tpu.ops.dp import DPParams, sw_align_protein
+    from megapath.ops.dp import DPParams, sw_align_protein
 
     rng = np.random.default_rng(12)
     B, R, W = 8, 40, 64
@@ -188,11 +188,11 @@ def test_device_blosum_dp_matches_host_oracle():
 def test_protein_remap_stage(mini_taxdb):
     """Stage 4.1 end-to-end: contigs + unmapped reads -> blastx -> tax
     lookup -> r2c_to_r2g join -> NR report (runMegaPath.sh:300-325)."""
-    from megapath_tpu.io.lsam import LsamRecord
-    from megapath_tpu.pipeline.assembly import AssemblyResult, protein_remap
+    from megapath.io.lsam import LsamRecord
+    from megapath.pipeline.assembly import AssemblyResult, protein_remap
 
     rng = np.random.default_rng(21)
-    from megapath_tpu.classify.protein import AA
+    from megapath.classify.protein import AA
 
     real20 = AA[:20]
     # protein subjects named by ACCESSION (0x1-joined), mapped by the

@@ -4,11 +4,11 @@ import io
 
 import numpy as np
 
-from megapath_tpu.align import AlignEngine, AlignParams, MmpParams
-from megapath_tpu.index.fm import build_fm_index
-from megapath_tpu.index.pack import COMPLEMENT, decode_seq, pack_fasta
-from megapath_tpu.io.fastq import FastqRecord
-from megapath_tpu.io.sam import sam_header, write_sam
+from megapath.align import AlignEngine, AlignParams, MmpParams
+from megapath.index.fm import build_fm_index
+from megapath.index.pack import COMPLEMENT, decode_seq, pack_fasta
+from megapath.io.fastq import FastqRecord
+from megapath.io.sam import sam_header, write_sam
 
 
 def test_sam_output_roundtrip():
@@ -65,7 +65,7 @@ def test_sam_output_roundtrip():
 def test_bwa_single_mapq_table():
     """bwaLikeSingleQualScore (BGS-IO.cpp:710-728) hand cases:
     g_log_n[x] = int(4.343*ln(x)+0.5)."""
-    from megapath_tpu.io.sam import bwa_single_mapq
+    from megapath.io.sam import bwa_single_mapq
 
     assert bwa_single_mapq(2, 0) == 0  # multiple optimal hits
     assert bwa_single_mapq(1, 0) == 37  # unique, no suboptimal
@@ -79,7 +79,7 @@ def test_bwa_single_mapq_table():
 
 def test_bwa_pair_mapq_cases():
     """bwaLikePairQualScore (BGS-IO.cpp:814-877) hand cases."""
-    from megapath_tpu.io.sam import bwa_pair_mapq
+    from megapath.io.sam import bwa_pair_mapq
 
     # both ends unique/no-subopt: 37+37 capped at 60, both get it
     assert bwa_pair_mapq(1, 0, 1, 0, 160, 1, 0, 0, 80, 80) == (60, 60)

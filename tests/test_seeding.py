@@ -3,14 +3,14 @@
 import numpy as np
 import pytest
 
-from megapath_tpu.align.params import MmpParams
-from megapath_tpu.align.seeding import (
+from megapath.align.params import MmpParams
+from megapath.align.seeding import (
     decode_seeds,
     make_walkers_fast,
     mmp_seed,
 )
-from megapath_tpu.index.fm import build_fm_index
-from megapath_tpu.index.pack import COMPLEMENT, encode_seq
+from megapath.index.fm import build_fm_index
+from megapath.index.pack import COMPLEMENT, encode_seq
 
 
 def _rand(n, seed):

@@ -3,14 +3,14 @@
 import numpy as np
 import pytest
 
-from megapath_tpu.align.params import MmpParams
-from megapath_tpu.align.seeding import make_walkers_fast, mmp_seed
-from megapath_tpu.align.seeding_jax import (
+from megapath.align.params import MmpParams
+from megapath.align.seeding import make_walkers_fast, mmp_seed
+from megapath.align.seeding_jax import (
     DeviceFM,
     device_locate,
     device_mmp_seed,
 )
-from megapath_tpu.index.fm import build_fm_index
+from megapath.index.fm import build_fm_index
 
 PARAMS = MmpParams(seed_min_length=12, reseed_len=13, good_seed_len=18)
 
@@ -112,7 +112,7 @@ def test_segmented_walk_matches_single_run(world):
     """Segment + compact_walk + resume == one full-limit run."""
     import jax.numpy as jnp
 
-    from megapath_tpu.align.seeding_jax import compact_walk
+    from megapath.align.seeding_jax import compact_walk
 
     codes, fm, dfm = world
     rng = np.random.default_rng(17)
@@ -170,7 +170,7 @@ def test_segmented_walk_matches_single_run(world):
 def test_staged_walk_matches_single_run(world):
     """On-device multi-segment compaction == one full-limit run, and
     the overflow flag fires when caps are too small."""
-    from megapath_tpu.align.seeding_jax import device_mmp_seed_staged
+    from megapath.align.seeding_jax import device_mmp_seed_staged
 
     codes, fm, dfm = world
     rng = np.random.default_rng(23)

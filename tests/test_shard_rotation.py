@@ -1,10 +1,10 @@
 """Shard staging beyond HBM: more index shards than devices.
 
-The production NT build is ~125 shards at the 2 Gbp cap
-(/root/reference/README.md:13, splitFasta.pl:19) against 16 GB of HBM
-per v5e chip, so the pipeline must rotate shards through the devices
-(host-RAM staging, SCALING.md HBM budget) rather than committing all
-of them up front. These tests run 4 shards on 2 virtual devices and
+The production NT build is ~125 shards at the 2 Gbp cap (the
+reference README's 250 GB NT, splitFasta.pl:19), more than the device
+memory of a few cards holds, so the pipeline must rotate shards through
+the devices (host-RAM staging) rather than committing all of them up
+front. These tests run 4 shards on 2 virtual devices and
 assert (a) at most n_devices shards are ever device-resident, and
 (b) the waved run's reports match the all-resident run byte for byte.
 """
@@ -12,10 +12,10 @@ assert (a) at most n_devices shards are ever device-resident, and
 import numpy as np
 import pytest
 
-from megapath_tpu.index.fm import build_fm_index
-from megapath_tpu.index.pack import COMPLEMENT, decode_seq, pack_fasta
-from megapath_tpu.io.fastq import FastqRecord
-from megapath_tpu.pipeline import MegaPathPipeline, PipelineConfig
+from megapath.index.fm import build_fm_index
+from megapath.index.pack import COMPLEMENT, decode_seq, pack_fasta
+from megapath.io.fastq import FastqRecord
+from megapath.pipeline import MegaPathPipeline, PipelineConfig
 
 
 @pytest.fixture(scope="module")
@@ -33,7 +33,7 @@ def world4():
 
 
 def _taxdb_for(n):
-    from megapath_tpu.taxonomy.taxdb import TaxDB
+    from megapath.taxonomy.taxdb import TaxDB
     import io, tempfile, os
 
     d = tempfile.mkdtemp()

@@ -6,7 +6,7 @@ import pathlib
 import numpy as np
 import pytest
 
-from megapath_tpu.filters.spike import (
+from megapath.filters.spike import (
     genome_coverage,
     overlap_fraction,
     spike_read_filter,

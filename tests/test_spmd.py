@@ -10,8 +10,8 @@ of the same program (the merge is placement-invariant).
 import numpy as np
 import pytest
 
-from megapath_tpu.align.params import AlignParams
-from megapath_tpu.index.pack import COMPLEMENT
+from megapath.align.params import AlignParams
+from megapath.index.pack import COMPLEMENT
 
 
 def _revcomp(codes: np.ndarray) -> np.ndarray:
@@ -20,7 +20,7 @@ def _revcomp(codes: np.ndarray) -> np.ndarray:
 
 @pytest.fixture(scope="module")
 def spmd_setup():
-    from megapath_tpu.parallel.spmd import pad_and_index_shards, stack_fms
+    from megapath.parallel.spmd import pad_and_index_shards, stack_fms
 
     rng = np.random.default_rng(11)
     S, M = 2, 3  # shards, sequences per shard
@@ -76,7 +76,7 @@ def _make_reads(setup, B, L=80, insert=200, seed=3):
 
 
 def _run(setup, mesh, reads1, reads2, lens):
-    from megapath_tpu.parallel.spmd import (
+    from megapath.parallel.spmd import (
         build_spmd_engine_step,
         place_spmd_inputs,
     )
@@ -102,7 +102,7 @@ def _run(setup, mesh, reads1, reads2, lens):
 def test_spmd_recovers_planted_pairs(spmd_setup):
     import jax
 
-    from megapath_tpu.parallel.spmd import make_mesh_for
+    from megapath.parallel.spmd import make_mesh_for
 
     mesh = make_mesh_for(jax.devices())
     B = 16
@@ -126,7 +126,7 @@ def test_spmd_placement_invariant(spmd_setup):
     import jax
     from jax.sharding import Mesh
 
-    from megapath_tpu.parallel.spmd import make_mesh_for
+    from megapath.parallel.spmd import make_mesh_for
 
     B = 8
     reads1, reads2, lens, _ = _make_reads(spmd_setup, B, seed=5)
@@ -154,7 +154,7 @@ def test_spmd_no_false_pairs(spmd_setup):
     """Random (unplanted) reads must not produce paired hits."""
     import jax
 
-    from megapath_tpu.parallel.spmd import make_mesh_for
+    from megapath.parallel.spmd import make_mesh_for
 
     rng = np.random.default_rng(9)
     B, L = 8, 80
@@ -173,7 +173,7 @@ def test_spmd_report_tail(spmd_setup, mini_taxdb):
     counts; junk reads count as unclassified."""
     import jax
 
-    from megapath_tpu.parallel.spmd import make_mesh_for, spmd_report
+    from megapath.parallel.spmd import make_mesh_for, spmd_report
 
     mesh = make_mesh_for(jax.devices())
     B = 16

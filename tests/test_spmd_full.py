@@ -14,8 +14,8 @@ import pathlib
 import numpy as np
 import pytest
 
-from megapath_tpu.align.params import AlignParams
-from megapath_tpu.index.pack import COMPLEMENT
+from megapath.align.params import AlignParams
+from megapath.index.pack import COMPLEMENT
 
 FIX = pathlib.Path(__file__).parent / "fixtures"
 CAS = FIX / "cascade"
@@ -48,7 +48,7 @@ def _hit_set(hits):
 
 def _run_spmd(refs, fms, reads1, reads2, lens, params, L, caps=None,
               lens2=None):
-    from megapath_tpu.parallel.spmd_full import (
+    from megapath.parallel.spmd_full import (
         SpmdCaps,
         build_spmd_full_engine,
         pack_ref_rows,
@@ -73,10 +73,10 @@ def _run_spmd(refs, fms, reads1, reads2, lens, params, L, caps=None,
 
 @pytest.fixture(scope="module")
 def small_world():
-    from megapath_tpu.index.fm import build_fm_index
-    from megapath_tpu.index.pack import PackedReference, pack_fasta
-    from megapath_tpu.io.fastq import FastqRecord
-    from megapath_tpu.index.pack import decode_seq
+    from megapath.index.fm import build_fm_index
+    from megapath.index.pack import PackedReference, pack_fasta
+    from megapath.io.fastq import FastqRecord
+    from megapath.index.pack import decode_seq
 
     rng = np.random.default_rng(42)
     refs, fms, texts = [], [], []
@@ -124,7 +124,7 @@ def _planted_reads(texts, B, L=80, insert=220, seed=5):
 def test_full_engine_hits_match_host_engine(small_world):
     """Per-shard hit tables from the one-program path == AlignEngine's,
     row for row (clean pairs, mutated pairs, SE+rescue, junk)."""
-    from megapath_tpu.align import AlignEngine
+    from megapath.align import AlignEngine
 
     refs, fms, texts = small_world
     params = AlignParams()
@@ -149,10 +149,10 @@ def test_pipeline_spmd_backend_cascade_byte_identical(mini_taxdb):
     one-program SPMD path and still reproduces the reference cascade's
     Kraken report byte for byte — the backend is selectable from the
     production driver, not just the bare program."""
-    from megapath_tpu.index.fm import build_fm_index
-    from megapath_tpu.index.pack import pack_fasta
-    from megapath_tpu.io.fastq import read_fastx, trim_readno
-    from megapath_tpu.pipeline import MegaPathPipeline, PipelineConfig
+    from megapath.index.fm import build_fm_index
+    from megapath.index.pack import pack_fasta
+    from megapath.io.fastq import read_fastx, trim_readno
+    from megapath.pipeline import MegaPathPipeline, PipelineConfig
 
     def pack(p):
         ref = pack_fasta(list(read_fastx(p)))
@@ -178,17 +178,17 @@ def test_pipeline_spmd_backend_cascade_byte_identical(mini_taxdb):
     stats = pipe._spmd["payload"]
     assert stats is not None and stats["hit_rows"] > 0
     # grouped-payload bound: ~4 rows/pair/shard, not the ~40 internal
-    # candidate rows (SCALING.md ICI math)
+    # candidate rows (SCALING.md merge-payload section)
     assert stats["rows_per_pair_per_shard"] < 8
 
 
 def test_full_engine_cascade_report_byte_identical(mini_taxdb):
     """SPMD hits + the shared pipeline tail reproduce the reference
     cascade's Kraken report byte for byte."""
-    from megapath_tpu.index.fm import build_fm_index
-    from megapath_tpu.index.pack import pack_fasta, pack_reads
-    from megapath_tpu.io.fastq import read_fastx, trim_readno
-    from megapath_tpu.pipeline import MegaPathPipeline, PipelineConfig
+    from megapath.index.fm import build_fm_index
+    from megapath.index.pack import pack_fasta, pack_reads
+    from megapath.io.fastq import read_fastx, trim_readno
+    from megapath.pipeline import MegaPathPipeline, PipelineConfig
 
     def pack(p):
         ref = pack_fasta(list(read_fastx(p)))
@@ -223,7 +223,7 @@ def test_full_engine_cascade_report_byte_identical(mini_taxdb):
     params = AlignParams()
     per_shard = _run_spmd(refs, fms, reads1, reads2, lens1, params, L)
     # drop hits of the padding rows
-    from megapath_tpu.align.engine import BatchHits
+    from megapath.align.engine import BatchHits
 
     per_shard = [
         BatchHits(*[getattr(h, f)[h.read < n] for f in (
@@ -270,13 +270,13 @@ def test_spmd_full_wide_fixture_hit_parity():
     the WIDE fixture's adversarial read classes (indels, Ns, 151 bp
     truncation semantics, junk) — the same breadth the host parity
     suite runs against the reference soap4 golden."""
-    from megapath_tpu.align import AlignEngine
-    from megapath_tpu.index.fm import build_fm_index
-    from megapath_tpu.index.pack import pack_fasta_file, pack_reads
-    from megapath_tpu.parallel.spmd_full import SpmdCaps
+    from megapath.align import AlignEngine
+    from megapath.index.fm import build_fm_index
+    from megapath.index.pack import pack_fasta_file, pack_reads
+    from megapath.parallel.spmd_full import SpmdCaps
 
     WIDE = FIX / "wide"
-    from megapath_tpu.io.fastq import read_fastx
+    from megapath.io.fastq import read_fastx
 
     ref = pack_fasta_file(WIDE / "genome.fa")
     fm = build_fm_index(ref.codes, sa_interval=8, lut_k=8)
@@ -333,8 +333,8 @@ def test_spmd_full_wide_fixture_hit_parity():
 def test_spmd_full_hg_params_hit_parity(small_world):
     """hg-stage params (seed_min_length=22/reseed_len=23, the human
     filter's soap4.ini) through the one-program path == host engine."""
-    from megapath_tpu.align import AlignEngine
-    from megapath_tpu.pipeline.megapath import HG_PARAMS
+    from megapath.align import AlignEngine
+    from megapath.pipeline.megapath import HG_PARAMS
 
     refs, fms, texts = small_world
     L, B = 80, 16
@@ -358,10 +358,10 @@ def test_pipeline_spmd_ladder_handles_junk_heavy_batches(mini_taxdb):
     host engine — whichever ladder level ends up serving it."""
     import numpy as np
 
-    from megapath_tpu.index.fm import build_fm_index
-    from megapath_tpu.index.pack import pack_fasta
-    from megapath_tpu.io.fastq import FastqRecord, read_fastx, trim_readno
-    from megapath_tpu.pipeline import MegaPathPipeline, PipelineConfig
+    from megapath.index.fm import build_fm_index
+    from megapath.index.pack import pack_fasta
+    from megapath.io.fastq import FastqRecord, read_fastx, trim_readno
+    from megapath.pipeline import MegaPathPipeline, PipelineConfig
 
     def pack(p):
         ref = pack_fasta(list(read_fastx(p)))

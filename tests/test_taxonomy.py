@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from megapath_tpu.taxonomy.taxdb import TaxDB, get_accession, remove_version
+from megapath.taxonomy.taxdb import TaxDB, get_accession, remove_version
 
 
 def test_remove_version():
@@ -79,7 +79,7 @@ def test_depth_table(mini_taxdb):
 
 
 def test_japsa_to_kraken(mini_taxdb):
-    from megapath_tpu.taxonomy.report import japsa_to_kraken
+    from megapath.taxonomy.report import japsa_to_kraken
 
     lines = [
         "header\tcols\there\tx\ttaxid\ty\tz\tw\taligned",

@@ -17,14 +17,12 @@ sys.path.insert(0, HERE)
 def main() -> None:
     import jax
 
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(HERE, "bench_cache", "jaxcache"),
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from megapath.utils.compile_cache import use_compile_cache
 
-    from megapath_tpu.align.params import AlignParams
-    from megapath_tpu.align.seeding_jax import (
+    use_compile_cache()
+
+    from megapath.align.params import AlignParams
+    from megapath.align.seeding_jax import (
         DeviceFM, build_walkers, device_mmp_seed,
     )
 

@@ -38,13 +38,13 @@ SEED = 23
 LUT_K = int(os.environ.get("BIG_LUT_K", "8"))
 # sa_interval 4 (was 8): the locate LF-walk is gather-latency-bound at
 # sa_interval+1 lockstep iterations over the expanded position rows;
-# halving the interval costs +256 MB HBM (n/4 int32 samples) on a
-# 16 GB chip and cuts the measured locate stage ~2x (r5)
+# halving the interval costs n/4 int32 samples (+256 MB at 512 Mbp)
+# and halves the LF steps per locate
 SA_INTERVAL = int(os.environ.get("BIG_SA_INTERVAL", "4"))
 
 
 def workload_hash() -> str:
-    from megapath_tpu.index.fm import OCC_BLOCK
+    from megapath.index.fm import OCC_BLOCK
 
     key = json.dumps(
         {
@@ -78,8 +78,8 @@ def log(msg: str) -> None:
 
 def build(force: bool = False):
     """Build + cache; returns (ref, fm, reads1, lens1, reads2, lens2)."""
-    from megapath_tpu.index.fm import FMIndex, build_fm_index
-    from megapath_tpu.index.pack import PackedReference
+    from megapath.index.fm import FMIndex, build_fm_index
+    from megapath.index.pack import PackedReference
 
     os.makedirs(CACHE, exist_ok=True)
     ref_p, fm_p, reads_p = paths()

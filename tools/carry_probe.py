@@ -17,11 +17,9 @@ def main() -> None:
     import jax
     import jax.numpy as jnp
 
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(HERE, "bench_cache", "jaxcache"),
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from megapath.utils.compile_cache import use_compile_cache
+
+    use_compile_cache()
     print(jax.devices())
 
     rng = np.random.default_rng(0)

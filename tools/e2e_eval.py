@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """End-to-end sensitivity/FDR evaluation vs the reference pipeline on
-a simulated multi-species community (VERDICT r4 item 4).
+a simulated multi-species community.
 
 Mirrors the reference's de facto integration test
 (/root/reference/calcAccuracy.pl:11-33 scores a 22-virus simulated
@@ -191,17 +191,14 @@ def run_reference(d, fa, fq1, fq2):
 
 def run_ours(d, fa, fq1, fq2):
     """MegaPathPipeline end to end on the same inputs."""
-    import jax
+    from megapath.utils.compile_cache import use_compile_cache
 
-    jax.config.update(
-        "jax_compilation_cache_dir", os.path.join(CACHE, "jaxcache")
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    from megapath_tpu.index.fm import build_fm_index
-    from megapath_tpu.index.pack import pack_fasta_file
-    from megapath_tpu.pipeline.megapath import MegaPathPipeline, PipelineConfig
-    from megapath_tpu.taxonomy.taxdb import TaxDB
-    from megapath_tpu.io.fastq import read_fastx
+    use_compile_cache()
+    from megapath.index.fm import build_fm_index
+    from megapath.index.pack import pack_fasta_file
+    from megapath.pipeline.megapath import MegaPathPipeline, PipelineConfig
+    from megapath.taxonomy.taxdb import TaxDB
+    from megapath.io.fastq import read_fastx
 
     ref = pack_fasta_file(fa)
     t = time.time()
@@ -224,7 +221,7 @@ def run_ours(d, fa, fq1, fq2):
     res = pipe.run_records(recs1, recs2)
     dt = time.time() - t
     log(f"our pipeline: {dt:.1f} s ({2*len(recs1)/dt:.0f} reads/s)")
-    from megapath_tpu.io.lsam import write_lsam
+    from megapath.io.lsam import write_lsam
 
     ours_lsam = os.path.join(d, "ours.lsam.id")
     write_lsam(res.lsam_id, ours_lsam)
@@ -330,7 +327,7 @@ def main() -> None:
                 f"of magnitude), {N_DECOYS} decoy genomes in the DB, "
                 f"{N_PAIRS} pairs x {READ_LEN} bp, {ERR*100:.1f}% error "
                 f"rate (tools/e2e_eval.py, seed {SEED}).\n\n"
-                "| metric | reference | megapath-tpu |\n|---|---|---|\n"
+                "| metric | reference | megapath |\n|---|---|---|\n"
                 f"| read sensitivity (species) | {ref_score['sensitivity']} "
                 f"| {our_score['sensitivity']} |\n"
                 f"| read FDR | {ref_score['fdr']} | {our_score['fdr']} |\n"

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Probe: cost of the post-walk pieces — flatten_seeds (nonzero-based
 device compaction), the d2h pull, build_walkers + h2d upload — to
-locate the ~0.3 s gap between the device walk (0.29 s) and the
-engine's seed_walk+pull stage (0.57-0.66 s)."""
+locate any gap between the device walk and the engine's
+seed_walk+pull stage."""
 
 import os
 import sys
@@ -18,16 +18,14 @@ def main() -> None:
     import jax
     import jax.numpy as jnp
 
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(HERE, "bench_cache", "jaxcache"),
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from megapath.utils.compile_cache import use_compile_cache
+
+    use_compile_cache()
     print(jax.devices())
 
     import bench
-    from megapath_tpu.align.params import MmpParams
-    from megapath_tpu.align import seeding_jax as sj
+    from megapath.align.params import MmpParams
+    from megapath.align import seeding_jax as sj
 
     ref, fm, reads1, lens1, reads2, lens2 = bench.build_workload()
     dfm = sj.DeviceFM.from_host(fm)

@@ -12,7 +12,7 @@ HBM-resident table shaped like the 512 Mbp shard's:
   D  2 random row gathers/walker, 20-col rows (the paired layout)
   E  2 random gathers but the second = first index (dup, same row)
 
-Honest sync: device_get of a scalar."""
+Sync: device_get of a scalar."""
 
 import os
 import sys
@@ -28,11 +28,9 @@ def main() -> None:
     import jax
     import jax.numpy as jnp
 
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(HERE, "bench_cache", "jaxcache"),
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from megapath.utils.compile_cache import use_compile_cache
+
+    use_compile_cache()
     print(jax.devices())
 
     rng = np.random.default_rng(0)

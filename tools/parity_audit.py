@@ -7,7 +7,7 @@ shard (the regime the reference actually runs):
 
 1. read-end parity: per-read-end (best score, hit set) from our engine
    vs the reference cfq — the round-4 audit, now a committed tool.
-2. REPORT-level parity (VERDICT r4 item 3): both cfq streams run
+2. REPORT-level parity: both cfq streams run
    through the REFERENCE tail binaries (fastq2lsam | taxLookupAcc |
    reassign | genKrakenReport, /root/reference/cc) with a synthetic
    8-species taxonomy; the product metric is whether the Kraken report
@@ -188,7 +188,7 @@ def run_reference(idx: str, fq1: str, fq2: str, out_cfq: str) -> None:
 
 def parse_cfq(path: str):
     """{(read_idx, end): (best, {seq: score})} from a cfq stream."""
-    from megapath_tpu.io.fastq import read_fastx, trim_readno
+    from megapath.io.fastq import read_fastx, trim_readno
 
     seen = {}
     out = {}
@@ -212,16 +212,13 @@ def parse_cfq(path: str):
 def run_ours(ref, fm, reads1, lens1, reads2, lens2, out_cfq: str):
     """Our engine on the same shard/reads -> cfq file; returns the
     (best, hits) table directly as well."""
-    import jax
+    from megapath.utils.compile_cache import use_compile_cache
 
-    jax.config.update(
-        "jax_compilation_cache_dir", os.path.join(CACHE, "jaxcache")
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    use_compile_cache()
     from dataclasses import replace
 
-    from megapath_tpu.align import AlignEngine, AlignParams, best_per_seq
-    from megapath_tpu.align.output import format_comment
+    from megapath.align import AlignEngine, AlignParams, best_per_seq
+    from megapath.align.output import format_comment
 
     params = AlignParams()
     mmp = params.mmp

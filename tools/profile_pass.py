@@ -22,14 +22,12 @@ sys.path.insert(0, HERE)
 def main() -> None:
     import jax
 
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(HERE, "bench_cache", "jaxcache"),
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from megapath.utils.compile_cache import use_compile_cache
+
+    use_compile_cache()
 
     import bench
-    from megapath_tpu.align import AlignEngine, AlignParams
+    from megapath.align import AlignEngine, AlignParams
 
     if os.environ.get("PROFILE_LARGE"):
         from tools.build_bench_shard import build as _build_big
@@ -84,8 +82,8 @@ def main() -> None:
     wrap(engine, "_single_and_rescue", "se_rescue_total")
     wrap(engine, "seed_positions", "seeding_total")
 
-    import megapath_tpu.align.engine as eng_mod
-    from megapath_tpu.align import pairing as pairing_mod
+    import megapath.align.engine as eng_mod
+    from megapath.align import pairing as pairing_mod
 
     orig_pair = pairing_mod.pair_candidates
 
@@ -127,7 +125,7 @@ def main() -> None:
         import numpy as np
         from jax.sharding import Mesh
 
-        from megapath_tpu.parallel.spmd_full import (
+        from megapath.parallel.spmd_full import (
             SpmdCaps,
             build_spmd_full_engine,
             pad_ref_codes,

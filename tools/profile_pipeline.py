@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Stage timing of the bench pipeline leg (run_records) on the TPU.
+"""Stage timing of the bench pipeline leg (run_records) on the device.
 
 Usage: python tools/profile_pipeline.py [n_passes]
 """
@@ -18,17 +18,13 @@ sys.path.insert(0, HERE)
 
 
 def main() -> None:
-    import jax
+    from megapath.utils.compile_cache import use_compile_cache
 
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(HERE, "bench_cache", "jaxcache"),
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    use_compile_cache()
 
     import bench
-    from megapath_tpu.io.fastq import FastqRecord
-    from megapath_tpu.pipeline.megapath import MegaPathPipeline, PipelineConfig
+    from megapath.io.fastq import FastqRecord
+    from megapath.pipeline.megapath import MegaPathPipeline, PipelineConfig
 
     ref, fm, reads1, lens1, reads2, lens2 = bench.build_workload()
     decode = np.frombuffer(b"ACGT", dtype=np.uint8)

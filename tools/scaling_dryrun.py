@@ -4,8 +4,8 @@ Runs the full in-program engine (seed -> locate -> pair -> DP -> merge)
 at data-axis sizes 1/2/4 with a FIXED per-device batch and reports
 throughput per device-row. On the virtual CPU mesh all devices share
 the host's cores, so these numbers measure program overhead (dispatch,
-collective layout), not ICI scaling — real scaling rides the TPU mesh.
-Prints the table (update SCALING.md manually — the file also carries HBM-budget and ICI-payload sections).
+collective layout), not cross-card scaling, which needs real cards.
+Prints the table (update SCALING.md manually — the file also carries the memory-budget and merge-payload sections).
 
 Usage: XLA_FLAGS=--xla_force_host_platform_device_count=8 \
        python tools/scaling_dryrun.py
@@ -29,9 +29,9 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np  # noqa: E402
 from jax.sharding import Mesh  # noqa: E402
 
-from megapath_tpu.align.params import AlignParams  # noqa: E402
-from megapath_tpu.index.pack import COMPLEMENT  # noqa: E402
-from megapath_tpu.parallel.spmd import (  # noqa: E402
+from megapath.align.params import AlignParams  # noqa: E402
+from megapath.index.pack import COMPLEMENT  # noqa: E402
+from megapath.parallel.spmd import (  # noqa: E402
     build_spmd_engine_step,
     pad_and_index_shards,
     place_spmd_inputs,
@@ -108,8 +108,8 @@ def main():
         "Virtual devices SHARE the host cores, so ideal weak scaling here",
         "is flat total time / linear aggregate throughput only insofar as",
         "the host has spare cores; the number recorded is program-level",
-        "overhead evidence, not ICI scaling (no multi-chip hardware in",
-        "this environment — see __graft_entry__.dryrun_multichip).",
+        "overhead evidence, not cross-card scaling (virtual devices",
+        "share the host — see __graft_entry__.dryrun_multichip).",
         "",
         "| data axis | shards | pairs | step (ms) | pairs/s | efficiency vs 1-row |",
         "|---|---|---|---|---|---|",
@@ -119,8 +119,8 @@ def main():
         lines.append(
             f"| {D} | {S_} | {B} | {dt*1e3:.1f} | {thr:,.0f} | {eff:.2f} |"
         )
-    # print only: SCALING.md also carries the HBM-budget and measured
-    # ICI-payload sections, which a blind overwrite would destroy
+    # print only: SCALING.md also carries the memory-budget and
+    # merge-payload sections, which a blind overwrite would destroy
     print("\n".join(lines))
 
 

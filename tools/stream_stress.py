@@ -3,12 +3,13 @@
 Generates a multi-hundred-MB gz FASTQ pair, runs the full pipeline
 through ``MegaPathPipeline.run_files`` with a small batch size, and
 samples peak RSS from a watcher thread. The claim under test
-(VERDICT round 1, item 3 / SOAP4.cpp:445 double buffering): RSS is
+(SOAP4.cpp:445 double buffering): RSS is
 bounded by the batch size, not the input size — the per-batch LSAM
 rows stream to disk and only numeric accumulators stay resident.
 
 Writes STREAMING.md with the input size, peak RSS, and stage counters.
-Run on the CPU backend (JAX_PLATFORMS=cpu) to keep the TPU free.
+Run on the CPU backend (JAX_PLATFORMS=cpu): it measures host memory,
+not the device.
 """
 
 import gzip
@@ -42,11 +43,11 @@ def rss_mb() -> float:
 
 
 def main():
-    from megapath_tpu.index.fm import build_fm_index
-    from megapath_tpu.index.pack import pack_fasta
-    from megapath_tpu.io.fastq import FastqRecord
-    from megapath_tpu.pipeline.megapath import MegaPathPipeline, PipelineConfig
-    from megapath_tpu.taxonomy import TaxDB
+    from megapath.index.fm import build_fm_index
+    from megapath.index.pack import pack_fasta
+    from megapath.io.fastq import FastqRecord
+    from megapath.pipeline.megapath import MegaPathPipeline, PipelineConfig
+    from megapath.taxonomy import TaxDB
 
     wd = "/tmp/stream_stress"
     os.makedirs(wd, exist_ok=True)
